@@ -1,21 +1,16 @@
-"""Scaling-efficiency benchmark: throughput vs mesh size.
+"""Scaling benchmark: sharded render and train-step time vs mesh size.
 
 BASELINE.json north star: >=85% rays/s scaling efficiency to N>=2 hosts.
-Only one real TPU chip is reachable in this environment, so this script
-measures the *sharded code path* two ways:
+Runs the sharded code path on 1, 2, 4, ... of the visible devices and
+prints one JSON line per mesh point.  On the four cards of one host it
+measures real scaling.  On the forced-host-device CPU backend the
+"devices" share the same silicon, so flat wall clock as the mesh grows
+shows only that the shard_map program balances its work (no
+serialization, no replicated work growing with the mesh).
 
-  1. real hardware point: 1-chip throughput (same number bench.py reports);
-  2. virtual scaling curve on the forced-host-device CPU backend (1, 2, 4,
-     8 devices) — this validates that the shard_map program itself scales
-     (no serialization, no replicated work growing with the mesh) even
-     though CPU "devices" share the same silicon, by checking that total
-     work stays constant and per-device work shrinks proportionally (wall
-     clock on shared silicon stays ~flat as the mesh grows: efficiency
-     here is work-balance, not speedup).
-
-Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-     python bench_scaling.py
-Prints one JSON line per mesh point.
+Run: python bench_scaling.py          (all visible GPUs)
+     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+     python bench_scaling.py          (work-balance check on the CPU)
 """
 
 import json

@@ -1,6 +1,6 @@
 // Native image encoder for simplepathtracer_tpu.
 //
-// TPU-native analog of the reference's stb_image_write dependency
+// Native analog of the reference's stb_image_write dependency
 // (reference include/IOHelpers.hpp:6-27 uses stbi_write_bmp for the final
 // framebuffer).  Written from scratch: 24-bit BMP and zlib-PNG encoders plus
 // a fused gamma+quantize resolve, exposed as a C ABI for ctypes (no pybind11

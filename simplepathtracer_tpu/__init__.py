@@ -1,4 +1,4 @@
-"""simplepathtracer_tpu — a TPU-native differentiable path tracer.
+"""simplepathtracer_tpu — a differentiable path tracer in JAX.
 
 A from-scratch JAX/Pallas re-design of the capabilities of
 ilia-glushchenko/SimplePathTracer (C++17 CPU path tracer): batched wavefront

@@ -44,7 +44,7 @@ def save(
         "sample_count": np.asarray(state.sample_count, np.int64),
         "next_key": np.asarray(state.next_key),
         # The FULL config dataclass (v3+): earlier versions hand-listed the
-        # fields and silently dropped rr_start_depth / use_pallas_hits /
+        # fields and silently dropped rr_start_depth and
         # silhouette_softness, so resuming an RR render continued without RR
         # — breaking bit-identical resume exactly for the headline RR config.
         "config_json": np.frombuffer(

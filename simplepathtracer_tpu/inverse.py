@@ -2,7 +2,7 @@
 
 BASELINE.json configs[3]: "recover sphere positions/albedos from target
 image via pixel-loss gradients".  The reference has no analog (it is not
-differentiable); this module is the capability the TPU build adds on top —
+differentiable); this module is the capability this build adds on top —
 the whole render is a pure function of the Scene pytree, so
 ``jax.value_and_grad`` of a pixel loss w.r.t. scene leaves flows through the
 bounce scan (rematerialized per bounce via jax.checkpoint), the
@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from .render import grad_safe_config, render_sample_batch
+from .render import grad_safe_config, kernel_available, render_sample_batch
 from .types import Camera, RenderConfig, Scene
 
 # Leaves that receive gradients (same set as parallel/sharding.py).
@@ -57,33 +57,20 @@ def render_linear(scene, camera, config, key):
     return (acc / config.spp).reshape(config.height, config.width, 3)
 
 
-def pixel_loss(params, static_scene, target, camera, config, key, leaves=DIFF_LEAVES,
-               pixel_perm=None):
+def pixel_loss(params, static_scene, target, camera, config, key, leaves=DIFF_LEAVES):
     """Mean squared error in linear radiance.
 
-    Always differentiable: ``grad_safe_config`` swaps a forward-only
-    ``use_pallas`` preset for the jnp bounce (+ Pallas closest-hit on TPU).
-
-    ``pixel_perm`` (optional [P] i32): render pixels in this order and
-    compare against the identically-permuted target — the loss VALUE is
-    unchanged (same (pixel, sample) set, MSE is order-invariant up to fp
-    summation), but a cost-balanced order evens the banked gradient
-    kernels' per-lane work (render.balanced_pixel_perm).
+    Always differentiable: ``grad_safe_config`` swaps a forward-kernel
+    ``use_pallas`` preset for the jnp bounce.
     """
     config = grad_safe_config(config)
     scene = merge_params(params, static_scene)
-    if pixel_perm is not None:
-        acc = render_sample_batch(
-            scene, camera, config, key, 0, config.spp, pixel_ids=pixel_perm
-        )
-        t = target.reshape(-1, 3)[pixel_perm]
-        return jnp.mean((acc / config.spp - t) ** 2)
     img = render_linear(scene, camera, config, key)
     return jnp.mean((img - target) ** 2)
 
 
 def pixel_loss_decoupled(params, static_scene, target, camera, config, key,
-                         leaves=DIFF_LEAVES, pixel_perm=None):
+                         leaves=DIFF_LEAVES):
     """MSE whose VALUE is the full-spp render's but whose GRADIENT is the
     independent-pair estimator: residual from the first half of the sample
     range (detached), pullback through the second half.
@@ -104,13 +91,9 @@ def pixel_loss_decoupled(params, static_scene, target, camera, config, key,
     h = max(spp // 2, 1)
     sg = jax.lax.stop_gradient
     sgscene = jax.tree.map(sg, scene)
-    kwargs = {} if pixel_perm is None else {"pixel_ids": pixel_perm}
-    acc_a = render_sample_batch(sgscene, camera, config, key, 0, h, **kwargs)
-    acc_b = render_sample_batch(scene, camera, config, key, h, spp - h,
-                                **kwargs)
+    acc_a = render_sample_batch(sgscene, camera, config, key, 0, h)
+    acc_b = render_sample_batch(scene, camera, config, key, h, spp - h)
     t = target.reshape(-1, 3)
-    if pixel_perm is not None:
-        t = t[pixel_perm]
     img = (acc_a + acc_b) / spp
     value = jnp.mean((img - t) ** 2)
     resid = sg(2.0 * (acc_a / h - t) / t.size)
@@ -123,17 +106,17 @@ def make_accum_grad_step(static_scene, target, camera, config,
                          n_groups: int):
     """Gradient-accumulated loss/grad for spp beyond one dispatch's budget.
 
-    For very high spp (e.g. BASELINE config 5's 2000 on a single chip) a
-    monolithic ``value_and_grad`` either falls back to the slower chunked
-    remat or outgrows the worker entirely.  This splits the work at the
-    OPTIMIZER level with the independent-pair estimator:
+    For very high spp (e.g. BASELINE config 5's 2000 on a single card) a
+    monolithic ``value_and_grad`` rematerializes every chunk in one
+    program.  This splits the work at the OPTIMIZER level with the
+    independent-pair estimator:
 
-      * one fast FORWARD-ONLY render of all spp (the persistent kernel if
+      * one fast FORWARD-ONLY render of all spp (the forward kernel if
         the preset uses it) produces the image and the pixel cotangent
         ct = 2 (img - target) / N, with an INDEPENDENT key;
       * the gradient is assembled as sum_k vjp_k(ct) over ``n_groups``
         disjoint sample ranges, each its own jitted call (one group's
-        streamed residuals alive at a time).
+        residuals alive at a time).
 
     Because the residual factor (img - target) and the differentiated
     factor use independent samples, E[ct . grad_k] factorizes — this is
@@ -147,17 +130,16 @@ def make_accum_grad_step(static_scene, target, camera, config,
     """
     import functools as _ft
 
-    from .render import grad_safe_config as _gsc
-
-    gcfg = _gsc(config)
+    gcfg = grad_safe_config(config)
     assert config.spp % n_groups == 0, (config.spp, n_groups)
     sub_spp = config.spp // n_groups
     # The value-pass image must see the SAME estimator as the gradient
-    # groups: the forward-only persistent kernel ignores soft silhouettes,
-    # so soft configs take the gradient-path primal instead.
+    # groups: the forward-only kernel ignores soft silhouettes, so soft
+    # configs (and backends without the kernel) take the jnp forward.
     fwd_cfg = (
         config
-        if config.use_pallas and config.silhouette_softness == 0.0
+        if config.use_pallas and kernel_available(config)
+        and config.silhouette_softness == 0.0
         else gcfg
     )
 
@@ -214,16 +196,12 @@ def camera_pixel_loss(cam_params, camera0, scene, target, config, key,
                       decoupled=False):
     """MSE in linear radiance as a function of CAMERA parameters.
 
-    Routes through grad_safe_config + camera_grad=True: XLA-side
-    differentiable ray generation feeding the fused trace (whose custom
-    VJP returns per-ray origin/direction cotangents) or the jnp bounce —
-    the regen/raygen kernels detach the camera and are excluded.  With
-    ``decoupled`` (soft configs) the gradient uses the independent-pair
-    estimator, same rationale as pixel_loss_decoupled.
+    Camera gradients flow through the differentiable ray generation
+    (camera.generate_rays) into the jnp bounce.  With ``decoupled`` (soft
+    configs) the gradient uses the independent-pair estimator, same
+    rationale as pixel_loss_decoupled.
     """
-    config = grad_safe_config(config).replace(
-        camera_grad=True, grad_regen=False,
-    )
+    config = grad_safe_config(config)
     camera = merge_camera(cam_params, camera0)
     if not decoupled:
         acc = render_sample_batch(scene, camera, config, key, 0, config.spp)
@@ -367,8 +345,6 @@ def fit(
     param_mask=None,
     snapshot_path=None,
     snapshot_every: int = 0,
-    balance: bool = False,
-    rebalance_every: int = 25,
     grad_accum: int = 0,
 ):
     """Adam-optimize the scene's differentiable leaves against a target.
@@ -376,20 +352,8 @@ def fit(
     ``grad_accum=K > 0`` switches each step to the gradient-accumulated
     independent-pair estimator (make_accum_grad_step): one fast forward of
     all spp for the image/cotangent, then K disjoint-sample vjp calls — for
-    spp beyond one dispatch's streamed-idx budget (BASELINE config 5 on a
-    single chip).  Incompatible with ``balance`` (the accumulation path
-    renders in image order).
-
-    ``balance=True`` probes per-pixel cost with the forward persistent
-    kernel (TPU or interpret mode) and renders every step in the
-    cost-balanced pixel order (render.balanced_pixel_perm) — the banked
-    gradient kernels' lanes then carry near-equal work, shrinking the
-    block-straggler tail.  Loss values are unchanged (same (pixel,
-    sample) set).  The probe RE-RUNS on the CURRENT scene every
-    ``rebalance_every`` steps (0 disables): geometry fits move spheres,
-    and a stale initial-scene balance decays as they move (round-3
-    VERDICT weak spot 4).  The permutation is a traced argument of the
-    jitted step, so re-probing never recompiles.
+    spp beyond what one dispatch should hold (BASELINE config 5 on a
+    single card).
 
     Each step uses a fresh base key so gradient noise is decorrelated across
     steps (stochastic gradient over path samples).  ``softness`` enables the
@@ -418,24 +382,6 @@ def fit(
     opt_state = opt.init(params)
     if softness and any(k in leaves for k in ("centers", "radii", "plane")):
         config = config.replace(silhouette_softness=float(softness))
-    # Forward-only Pallas presets downgrade to the differentiable path; on
-    # TPU, accelerate gradients with the fused Pallas fwd+bwd bounce
-    # (ops/pallas_grad.py; gradient semantics identical to the jnp bounce —
-    # tests/test_pallas_grad.py).  CPU keeps the pure-jnp path (the kernels
-    # would need interpret mode there).
-    config = grad_safe_config(config)
-    if (
-        not (config.use_pallas_grad or config.use_pallas_hits)
-        and not config.pallas_interpret
-        and jax.default_backend() == "tpu"
-    ):
-        config = config.replace(use_pallas_grad=True)
-    pixel_perm = None
-    if balance and not grad_accum:
-        from .render import balanced_pixel_perm
-
-        pixel_perm = balanced_pixel_perm(scene_init, camera, config, key)
-
     accum_step = (
         make_accum_grad_step(static_scene, target, camera, config, grad_accum)
         if grad_accum else None
@@ -449,10 +395,9 @@ def fit(
     )
 
     @jax.jit
-    def step_fn(params, opt_state, step_key, pixel_perm):
+    def step_fn(params, opt_state, step_key):
         loss, grads = jax.value_and_grad(loss_impl)(
             params, static_scene, target, camera, config, step_key, leaves,
-            pixel_perm,
         )
         if param_mask is not None:
             grads = {
@@ -493,20 +438,12 @@ def fit(
             snapshot_path, params, opt_state
         )
     for i in range(start, steps):
-        if (
-            balance and not grad_accum and rebalance_every and i > start
-            and (i - start) % rebalance_every == 0
-        ):
-            pixel_perm = balanced_pixel_perm(
-                merge_params(params, static_scene), camera, config,
-                jax.random.fold_in(key, 100_000 + i),
-            )
         if accum_step is not None:
             loss, grads = accum_step(params, jax.random.fold_in(key, i))
             params, opt_state = apply_fn(params, opt_state, grads)
         else:
             params, opt_state, loss = step_fn(
-                params, opt_state, jax.random.fold_in(key, i), pixel_perm
+                params, opt_state, jax.random.fold_in(key, i)
             )
         losses.append(float(loss))
         if callback is not None:
@@ -531,7 +468,7 @@ def fit_sharded(  # noqa: C901
     snapshot_path=None,
     snapshot_every: int = 0,
 ):
-    """Multi-chip Adam fit: the distributed training loop of this framework.
+    """Multi-device Adam fit: the distributed training loop of this framework.
 
     Each step runs ``parallel.sharding.loss_and_grad_sharded`` — sharded
     forward render over the ('tiles', 'samples') mesh, sharded backward

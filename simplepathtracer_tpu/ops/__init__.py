@@ -1,4 +1,4 @@
-from .intersect import Hit, intersect_scene, intersect_scene_pallas  # noqa: F401
+from .intersect import Hit, intersect_scene  # noqa: F401
 from .materials import scatter, sky_color  # noqa: F401
 from .sampling import (  # noqa: F401
     RayCtx,

@@ -3,10 +3,11 @@
 Reference counterpart: ``cd::FindClosestIntersectionSphere``
 (include/Collision.hpp:87-109) — an O(S) scalar scan per ray with a
 ``uint8_t`` index (which silently truncates past 255 spheres) and a
-distance-squared comparison.  The TPU form is a dense ``[N rays, S spheres]``
+distance-squared comparison.  The jnp form is a dense ``[N rays, S spheres]``
 computation whose two inner products are expressed as ``[N,3] @ [3,S]``
-matmuls (MXU work), followed by VPU elementwise math and a masked argmin
-over the sphere axis; indices are int32, comparison is on the ray parameter t.
+matmuls, followed by elementwise math and a masked argmin over the sphere
+axis; indices are int32, comparison is on the ray parameter t.  (The
+forward kernel, ops/pallas_forward.py, scans spheres per lane instead.)
 
 Numerics: the geometric form ``t = t_center -/+ sqrt(r^2 - d_perp^2)``
 (include/Collision.hpp:19-47) is kept, with the discriminant clamped before
@@ -40,19 +41,19 @@ _DISC_EPS = 1e-12
 def ray_sphere_ts(origins, dirs, centers, radii, t_min):
     """Per (ray, sphere) candidate hit parameter.
 
-    Returns (t [N,S], valid [N,S]).  MXU-friendly: the only O(N*S*3) work is
-    two matmuls; everything else is rank-2 elementwise.
+    Returns (t [N,S], valid [N,S]).  The only O(N*S*3) work is two
+    matmuls; everything else is rank-2 elementwise.
     """
     # t_center[n,s] = (c_s - o_n) . d_n
-    # precision=HIGHEST: TPU (and this CPU build) default f32 matmuls to
-    # bf16 passes; intersection geometry needs true f32 (bf16 t errors are
-    # ~1e-2 — visible acne). HIGHEST selects the bf16x6/f32 exact path.
+    # precision=HIGHEST: a default-precision f32 matmul may run in TF32 or
+    # bf16 passes; intersection geometry needs true f32 (reduced-precision
+    # t errors are ~1e-2 — visible acne).
     hi = jax.lax.Precision.HIGHEST
-    d_dot_c = jnp.matmul(dirs, centers.T, precision=hi)         # [N,S] (MXU)
+    d_dot_c = jnp.matmul(dirs, centers.T, precision=hi)         # [N,S]
     o_dot_d = jnp.sum(origins * dirs, -1, keepdims=True)        # [N,1]
     tc = d_dot_c - o_dot_d
     # |oc|^2 = |c|^2 - 2 o.c + |o|^2
-    o_dot_c = jnp.matmul(origins, centers.T, precision=hi)      # [N,S] (MXU)
+    o_dot_c = jnp.matmul(origins, centers.T, precision=hi)      # [N,S]
     oc2 = (
         jnp.sum(centers * centers, -1)[None, :]
         - 2.0 * o_dot_c
@@ -69,56 +70,7 @@ def ray_sphere_ts(origins, dirs, centers, radii, t_min):
     return t, valid
 
 
-def _hit_from_index(origins, dirs, idx, scene, t_min, t_max) -> Hit:
-    """Differentiable hit reconstruction from a (detached) winner index.
-
-    Recomputes t for the selected sphere only — ~20 jnp ops on [N]-sized
-    arrays — so gradients w.r.t. centers/radii flow through the gather while
-    the discrete argmin stays locally constant (SURVEY.md S7 stage 4).
-    """
-    hit = idx >= 0
-    i = jnp.maximum(idx, 0)
-    c = scene.centers[i]                 # [N,3]
-    r = scene.radii[i]                   # [N]
-    return hit_from_gathered(origins, dirs, i, hit, c, r, t_min, t_max)
-
-
-def hit_from_gathered(origins, dirs, i, hit, c, r, t_min, t_max) -> Hit:
-    """_hit_from_index on pre-gathered (c [N,3], r [N]) winner attributes
-    (the gradient fast path fetches them via ops/table_gather.gather_rows
-    so the backward bucket-accumulates on the MXU instead of scattering)."""
-    oc = c - origins
-    tc = jnp.sum(oc * dirs, -1)
-    disc = r * r - (jnp.sum(oc * oc, -1) - tc * tc)
-    sq = jnp.sqrt(jnp.maximum(disc, _DISC_EPS))
-    t_near = tc - sq
-    t = jnp.where(t_near > t_min, t_near, tc + sq)
-    t = jnp.where(hit, t, t_max)
-    point = origins + t[:, None] * dirs
-    n = (point - c) / r[:, None]
-    n = n / jnp.sqrt(jnp.sum(n * n, -1, keepdims=True) + 1e-20)
-    return Hit(t=t, index=i, hit=hit, point=point, normal=n)
-
-
-def intersect_scene_pallas(
-    origins, dirs, alive, scene, t_min=1e-3, t_max=3.0e7, interpret=False
-) -> Hit:
-    """Closest hit via the fused Pallas kernel (ops/pallas_intersect.py).
-
-    The kernel sees detached inputs (it returns only the discrete argmin);
-    the differentiable t/point/normal are rebuilt by _hit_from_index.
-    """
-    from .pallas_intersect import closest_hit_pallas
-
-    sg = jax.lax.stop_gradient
-    idx, _ = closest_hit_pallas(
-        sg(origins), sg(dirs), alive, sg(scene.centers), sg(scene.radii),
-        t_min=t_min, t_max=t_max, interpret=interpret,
-    )
-    return _hit_from_index(origins, dirs, idx, scene, t_min, t_max)
-
-
-# Soft-silhouette logistic clamp (shared with ops/pallas_grad.bounce_tile):
+# Soft-silhouette logistic clamp:
 # saturates the sigmoid exactly in f32 and keeps every vjp finite.
 _XS_CLAMP = 30.0
 
@@ -140,9 +92,7 @@ def silhouette_scale(softness, r):
     (band half-width ~15 * soft * r near the edge), saturating to
     soft * |r| * R0 for giant spheres (world-space half-width ~7.5 *
     soft * R0, radius-independent).  Smooth and differentiable in r;
-    negative (hollow-glass) radii work through |r|.  Op order must match
-    between the jnp paths and the Pallas kernels (borderline acceptance
-    coins are knife edges)."""
+    negative (hollow-glass) radii work through |r|."""
     c = jnp.float32(softness * _SIL_R0)
     return (r * r) * c / (jnp.float32(_SIL_R0) + jnp.abs(r))
 
@@ -241,8 +191,6 @@ def silhouette_logit(u):
     disc_s > logit(u) * soft * r_s^2 — one transcendental pair per
     (ray, bounce) instead of a per-sphere sigmoid.  u = 0 (possible from
     the 24-bit uniform) clamps to "accept anything in the +-30 band".
-    Formula shared verbatim with the Pallas kernels (log only — Mosaic has
-    no log1p lowering).
     """
     tiny = 1e-30
     return jnp.clip(
@@ -274,8 +222,8 @@ def intersect_scene_soft(
     one-sided round-4 blend measured AD/FD = 0.49 on geometry leaves
     because it dropped L_behind.
 
-    Semantics (including the running-best-t blocker filter and first-wins
-    tie breaks) match the Pallas kernels' one-pass scan exactly; the final
+    Semantics include a running-best-t blocker filter and first-wins tie
+    breaks, as a one-pass scan in sphere order would have; the final
     strictly-in-front validity test (t_blocker < t_winner) is applied by
     the bounce, which recomputes it from the blocker's attributes.
 
@@ -329,7 +277,7 @@ def intersect_scene_soft(
     t_hit = jnp.take_along_axis(t_sel, index[:, None], axis=-1)[:, 0]
     hit = t_hit < t_max
 
-    # Blocker: kernel one-pass semantics — a rejected sphere qualifies if
+    # Blocker: one-pass scan semantics — a rejected sphere qualifies if
     # its would-be hit t beats the best accepted t seen SO FAR (exclusive
     # running min in sphere-index order); max normalized disc wins, first
     # on ties.  The validity band's lower edge (t_raw > t_min - 30 sigma_v)

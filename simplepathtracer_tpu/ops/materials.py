@@ -3,8 +3,8 @@
 Reference counterpart: the per-hit ``switch (g_materials[i])`` dispatch into
 SampleColorDiffuse/Reflective/Refractive (include/SingleThreadPathTracer.hpp:
 94-112) and the wavefront tracer's material-binned queues
-(include/TaskBasedPathTracer.hpp:9-30).  On TPU uniform control flow beats
-compaction: every ray computes all three scatter candidates on the VPU and a
+(include/TaskBasedPathTracer.hpp:9-30).  Here uniform control flow replaces
+compaction: every ray computes all three scatter candidates and a
 ``jnp.where`` over the material id picks one (SURVEY.md S7 design stance).
 
 Semantics are the *intended* Shirley ones (the reference's quirks — 0.5
@@ -74,13 +74,8 @@ def scatter(dirs, hit, scene, unif, fresnel_score=False):
 
 
 def scatter_attrs(dirs, n, mat, albedo, fuzz, ior, unif, fresnel_score=False):
-    """scatter() on pre-gathered per-ray attributes.
-
-    The gradient fast path fetches all float attributes through ONE fused
-    custom-VJP gather (ops/table_gather.py) so the backward does a single
-    MXU bucketing per bounce instead of several serialized scatter-adds;
-    this entry point consumes that pre-gathered view.
-    """
+    """scatter() on pre-gathered per-ray attributes (the plane branch of
+    the bounce overrides them on plane hits)."""
     # Face-forward normal: outward if the ray arrives from outside.
     front = jnp.sum(dirs * n, -1) < 0.0      # [N]
     n_face = jnp.where(front[:, None], n, -n)

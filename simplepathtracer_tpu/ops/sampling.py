@@ -2,7 +2,7 @@
 
 The reference uses a wall-clock-seeded ``thread_local`` splitmix engine
 (include/Random.hpp:11-46, 86-93): renders are irreproducible and the random
-stream depends on the thread schedule.  The TPU build makes every random
+stream depends on the thread schedule.  This build makes every random
 number a pure function of
 
     (base_key, pixel_id, sample_id, slot)
@@ -12,10 +12,10 @@ via a hand-vectorized threefry2x32 block cipher over u32 counters:
     bits = threefry2x32(key, counter = (pixel_id, sample_id << 8 | slot))
 
 so the image is bit-identical under any sharding of pixels/samples across
-chips — the determinism guardrail SURVEY.md S5 calls for.  Compared to
-vmapping ``jax.random.fold_in`` chains this is pure elementwise u32 VPU math
-(~200 ops per ray-bounce, no per-element key arrays, no gathers) — measured
-~10x faster on a v5e chip.
+devices — the determinism guardrail SURVEY.md S5 calls for.  Compared to
+vmapping ``jax.random.fold_in`` chains this is pure elementwise u32 math
+(~200 ops per ray-bounce, no per-element key arrays, no gathers), and the
+same function runs inside the forward kernel (ops/pallas_forward.py).
 
 Slot map (each slot = one threefry eval = 2 words):
     bounce b, eval e in 0..3  ->  slot b*4 + e   (depth <= 30)

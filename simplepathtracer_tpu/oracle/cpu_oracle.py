@@ -2,7 +2,7 @@
 
 This is the gold standard demanded by SURVEY.md S4: the reference ships zero
 tests and its only validation artifacts are eyeball BMPs, so correctness of
-the TPU build is established against this small, scalar, recursive
+this build is established against this small, scalar, recursive
 implementation instead.  It is written in classic recursive style (one ray
 at a time, Python floats) precisely so it shares *no* structure with the
 vectorized JAX wavefront — agreement between two independently-shaped

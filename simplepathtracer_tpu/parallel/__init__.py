@@ -1,6 +1,6 @@
-"""Multi-chip / multi-host parallelism: meshes, sharded render, sharded grad.
+"""Multi-device / multi-host parallelism: meshes, sharded render, sharded grad.
 
-TPU-native replacement for the reference's tile-scheduler thread pool
+SPMD replacement for the reference's tile-scheduler thread pool
 (include/Renderer.hpp:257-302) — see sharding.py.
 """
 

@@ -1,18 +1,19 @@
-"""Multi-chip rendering: device meshes, sharded render, sharded train step.
+"""Multi-device rendering: device meshes, sharded render, sharded train step.
 
 Reference counterpart: the tile scheduler + thread pool
 (include/Renderer.hpp:257-302) — the reference splits the image into
 threadCount^2 tiles and fans them out over detached std::threads throttled by
 an atomic counter + condition_variable, writing into one shared framebuffer.
-The TPU-native form is SPMD: a 2-D ``jax.sharding.Mesh`` with axes
+Here the form is SPMD: a 2-D ``jax.sharding.Mesh`` with axes
 
     ("tiles", "samples")
 
 where image pixels are sharded along ``tiles`` and samples-per-pixel along
 ``samples``.  Scene/camera parameters are replicated (they are tiny), the
 partial sample accumulations are combined with ``lax.psum`` over the
-``samples`` axis (riding ICI), and the output image stays sharded over
-``tiles``.  There is no shared-mutable framebuffer and no throttling — XLA
+``samples`` axis, and the output image stays sharded over ``tiles``.  The
+cards of one host are joined all to all, so the mesh shape follows the
+algorithm: any split of devices between the axes costs the same links.  There is no shared-mutable framebuffer and no throttling — XLA
 schedules the SPMD program; the condvar dance has no equivalent because it
 solved a problem (oversubscription of a shared CPU) that the mesh does not
 have.
@@ -45,8 +46,7 @@ def make_mesh(tiles: int | None = None, samples: int = 1, devices=None) -> Mesh:
     """Build a ('tiles', 'samples') mesh over the available devices.
 
     With ``tiles=None`` all devices not used by ``samples`` go to the tile
-    axis.  On a pod slice, prefer putting ``samples`` on the innermost
-    (fastest-ICI) axis: the per-step collective is the sample-axis psum.
+    axis.  The per-step collective is the sample-axis psum.
     """
     if devices is None:
         devices = jax.devices()
@@ -102,7 +102,7 @@ def render_accum_sharded(
         )
         return jax.lax.psum(acc, "samples")
 
-    # check_vma must be off for the Pallas fast path: the Pallas interpreter
+    # check_vma must be off for the forward kernel: the Pallas interpreter
     # (CPU tests) evaluates the kernel jaxpr without replaying the implicit
     # varying-axis casts, tripping the checker.  Forward rendering has no
     # transpose, so the check adds no safety here; the gradient path
@@ -135,35 +135,6 @@ _DIFF_LEAVES = (
 )
 
 
-@jax.custom_vjp
-def _psum_samples_unchecked(x):
-    """psum over "samples" with the *correct* adjoint under check_vma=False.
-
-    With vma tracking off, JAX transposes ``psum`` into another ``psum`` —
-    but the cotangent here is sample-invariant (the loss depends only on the
-    reduced value), so that transpose inflates it by the axis size.  The true
-    adjoint of an all-reduce onto a varying input, given an invariant
-    cotangent, is the identity broadcast — which is exactly what the checked
-    mode's transpose (an unvarying->varying cast) computes.  Measured: without
-    this, sharded fused grads were n_samples× too large on each shard's own
-    rays (and wrong after any single-axis correction).
-    """
-    return jax.lax.psum(x, "samples")
-
-
-def _psum_samples_unchecked_fwd(x):
-    return jax.lax.psum(x, "samples"), None
-
-
-def _psum_samples_unchecked_bwd(_, ct):
-    return (ct,)
-
-
-_psum_samples_unchecked.defvjp(
-    _psum_samples_unchecked_fwd, _psum_samples_unchecked_bwd
-)
-
-
 def split_scene(scene: Scene):
     """Split a Scene into (differentiable params dict, static remainder).
 
@@ -187,26 +158,17 @@ def loss_and_grad_sharded(
 
     ``target``: [H, W, 3] *linear* radiance target (pre-gamma).  Loss is the
     mean squared error of the per-pixel sample-mean radiance.  Parameter
-    gradients from every (tile, sample) shard are combined with a single
-    fused ``psum`` over both mesh axes — the TPU-native form of gradient
-    all-reduce (scene params are replicated, so this is pure ICI traffic).
+    gradients from every (tile, sample) shard are combined by the psum
+    autodiff inserts over both mesh axes (scene params are replicated).
 
-    The config is downgraded via ``grad_safe_config``: the forward-only
-    persistent Pallas kernel cannot be differentiated, so presets with
-    ``use_pallas=True`` switch to the jnp bounce (+ detached Pallas
-    closest-hit on TPU) here instead of crashing inside shard_map.
+    The config is downgraded via ``grad_safe_config``: the forward kernel
+    cannot be differentiated, so presets with ``use_pallas=True`` switch
+    to the jnp bounce here instead of crashing inside shard_map.
     """
     config = grad_safe_config(config)
     p_local, s_local = _block_sizes(config, mesh)
     p_total = config.num_pixels
     inv_spp = 1.0 / config.spp
-    # The Pallas *interpreter* (CPU tests) evaluates kernel jaxprs without
-    # replaying implicit varying-axis casts and trips the vma checker;
-    # compiled TPU kernels lower to a custom call and keep full checking.
-    vma_checked = not (
-        (config.use_pallas_hits or config.use_pallas_grad)
-        and config.pallas_interpret
-    )
 
     def body(scene, camera, key, target_local):
         ti = jax.lax.axis_index("tiles")
@@ -220,12 +182,8 @@ def loss_and_grad_sharded(
                 sc, camera, config, key, pixel_ids, si * s_local, s_local
             )
             # Cross-sample mean must happen before squaring: psum over the
-            # sample axis inside the differentiated function.  Unchecked
-            # mode needs the custom adjoint (see _psum_samples_unchecked).
-            if vma_checked:
-                mean = jax.lax.psum(acc, "samples") * inv_spp
-            else:
-                mean = _psum_samples_unchecked(acc) * inv_spp
+            # sample axis inside the differentiated function.
+            mean = jax.lax.psum(acc, "samples") * inv_spp
             return jnp.sum((mean - target_local) ** 2) / (p_total * 3)
 
         loss, grads = jax.value_and_grad(local_loss)(params)
@@ -235,15 +193,6 @@ def loss_and_grad_sharded(
         # mesh axes when transposing the implicit broadcast — no explicit
         # all-reduce needed (adding one would multiply by the shard count).
         loss = jax.lax.psum(loss, "tiles")
-        if not vma_checked:
-            # With check_vma=False the transpose of the replicated-params
-            # broadcast does NOT insert a psum (vma tracking is off), so each
-            # shard's grads cover only its own (tile, sample) rays — with the
-            # sample-axis adjoint corrected by _psum_samples_unchecked, the
-            # full gradient is the explicit all-reduce over BOTH mesh axes.
-            # With check_vma=True autodiff inserts this psum itself and this
-            # block must not run (it would multiply by the shard count).
-            grads = jax.lax.psum(grads, ("tiles", "samples"))
         return loss, grads
 
     f = shard_map(
@@ -251,7 +200,6 @@ def loss_and_grad_sharded(
         mesh=mesh,
         in_specs=(P(), P(), P(), P("tiles")),
         out_specs=(P(), P()),
-        check_vma=vma_checked,
     )
     target_flat = target.reshape(p_total, 3)
     return f(scene, camera, key, target_flat)

@@ -62,7 +62,7 @@ PRESETS = {
                             spp_chunk=0, use_pallas=True),
     ),
     # Infinite Lambertian ground plane (the reference's dead plane code,
-    # live here in every path including the gradient kernels — round 4)
+    # live here in every path)
     "three_sphere_plane": Preset(
         name="three_sphere_plane",
         description="Lambertian/metal/glass trio on an INFINITE plane, 400x200 @ 64spp",
@@ -90,10 +90,11 @@ PRESETS = {
         config=RenderConfig(width=1440, height=1440, spp=100, max_depth=10,
                             spp_chunk=0, use_pallas=True),
     ),
-    # BASELINE.json configs[4] — multi-host scale config (mesh set at runtime)
+    # BASELINE.json configs[4] — the sharded multi-device config (mesh set
+    # at runtime)
     "cover_multihost": Preset(
         name="cover_multihost",
-        description="Cover scene 1200x800 @ 2000spp for sharded multi-chip runs",
+        description="Cover scene 1200x800 @ 2000spp for sharded multi-device runs",
         scene_fn=lambda key: scenes.compact_scene(scenes.cover_scene(key, max_spheres=512)),
         camera_fn=lambda: make_camera(
             origin=(13, 2, 3), lookat=(0, 0, 0), vfov_deg=20,

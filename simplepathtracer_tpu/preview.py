@@ -1,10 +1,10 @@
-"""Live progressive preview over HTTP — the TPU-host display analog.
+"""Live progressive preview over HTTP — the headless-host display analog.
 
 Reference counterpart: the GLFW window that re-uploads the shared
 framebuffer as a GL texture every frame so the tile render appears
 progressively (include/Renderer.hpp:316-356, UpdateTexture :157-164).
-TPU hosts are headless (SURVEY.md S2 "Display / live preview": "no
-windowing on TPU hosts"), so the equivalent is a tiny in-process HTTP
+Accelerator hosts are headless (SURVEY.md S2 "Display / live preview"),
+so the equivalent is a tiny in-process HTTP
 server: point a browser at http://host:port/ and the page refreshes the
 current accumulation image every few seconds while the render runs.
 

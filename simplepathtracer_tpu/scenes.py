@@ -16,7 +16,7 @@ thread_local engine from the wall clock, include/Random.hpp:40-44) and return
 an immutable pytree instead of mutating globals.  Static-shape discipline:
 random scenes draw a *fixed-size* sphere pool and mask rejected slots by
 moving them far below the ground with radius ~0 (XLA needs static shapes; a
-dead sphere that can never be hit is the TPU-native analog of pop_back).
+dead sphere that can never be hit is the static-shape analog of pop_back).
 """
 
 from __future__ import annotations
@@ -311,10 +311,9 @@ def with_ground_plane(
 
     Defaults are the reference's (dead) plane constants: planeNormal
     {0,1,0}, planePoint {0,-0.5,0}, planeColor {246,219,219}
-    (include/Globals.hpp:26-28).  The plane is live in every forward path
-    (jnp bounce + both Pallas kernels, where it costs ~one extra sphere per
-    scan); the fused/hits gradient kernels are sphere-only, so gradient
-    entry points fall back to the jnp bounce for plane scenes (render.py).
+    (include/Globals.hpp:26-28).  The plane is live in every path: the jnp
+    bounce (forward and gradient) and the forward kernel, where it costs
+    about one extra sphere per scan.
 
     An infinite plane is better-conditioned than the radius-1e3/1e6 ground
     spheres the reference actually uses (SceneGenerators.hpp:84, 9-10): no
@@ -334,10 +333,10 @@ def compact_scene(scene: Scene, pad_multiple: int = 4) -> Scene:
 
     Random scene generators keep a static sphere budget and mask rejected
     slots as unhittable dead spheres (tiny radius far below the ground).
-    The Pallas scan is O(total slots), so trimming the ~5% dead slots is
-    free throughput.  The live set is unchanged, so the image is identical
-    up to argmin tie order.  Pads the live count up to ``pad_multiple``
-    (the kernel's scan unroll) with one repeated dead slot.
+    Every scan is O(total slots), so trimming the ~5% dead slots is free
+    throughput.  The live set is unchanged, so the image is identical up
+    to argmin tie order.  Pads the live count up to ``pad_multiple`` with
+    one repeated dead slot.
     """
     radii = np.asarray(scene.radii)
     centers = np.asarray(scene.centers)

@@ -1,4 +1,4 @@
-"""Core pytrees for the TPU-native path tracer.
+"""Core pytrees for the path tracer.
 
 The reference (ilia-glushchenko/SimplePathTracer) keeps its scene in global
 mutable SoA arrays (include/Globals.hpp:31-37) and its configuration in
@@ -27,7 +27,7 @@ class Material(enum.IntEnum):
 
     The reference enumerates SKYBOX/REFLECTIVE/REFRACTIVE/DIFFUSE
     (include/Definitions.hpp:7-13); SKYBOX is not a surface property there
-    (it is the miss shader), so the TPU build models only the three surface
+    (it is the miss shader), so this build models only the three surface
     materials and treats a miss as hitting the sky.
     """
 
@@ -78,10 +78,9 @@ class Scene:
     # with the surface {p : dot(n, p) + k = 0}, albedo rgb), or None.  The
     # reference counterpart is its DEAD plane code + constants
     # (include/Collision.hpp:73-85, Globals.hpp:26-28) — here it is live in
-    # every forward path (jnp bounce + both Pallas kernels) AND the regen
-    # gradient kernels (round 4: virtual-unit-sphere winner, PLANE_IDX
-    # code).  A DIFF_LEAVES member since round 4: offset + albedo receive
-    # gradients; the unit normal is structurally detached in every path.
+    # every forward path (jnp bounce and the forward kernel).  A DIFF_LEAVES
+    # member: offset + albedo receive gradients; the unit normal is
+    # structurally detached.
     plane: Array | None = None
 
     @property
@@ -99,7 +98,7 @@ class Camera:
     The reference camera is a pinhole built from a (buggy) cross-product
     basis (include/Math.hpp:198-231; the Cross z-term bug is documented in
     SURVEY.md S2) with fixed 90-degree FOV via z=1 NDC
-    (include/SingleThreadPathTracer.hpp:125-127).  The TPU build uses the
+    (include/SingleThreadPathTracer.hpp:125-127).  This build uses the
     correct orthonormal basis plus vertical FOV and defocus blur (needed by
     BASELINE config 3).  All leaves are differentiable.
     """
@@ -154,47 +153,10 @@ class RenderConfig:
     t_max: float = 3.0e7
     gamma: float = 2.0           # reference gamma (include/IOHelpers.hpp:19: sqrt)
     spp_chunk: int = 0           # 0 => all spp in one pass; else scan over chunks
-    use_pallas: bool = False     # forward fast path: Pallas megakernels
-    # Gradient-compatible acceleration: closest-hit argmin via the Pallas
-    # kernel (detached) + differentiable [N]-sized hit reconstruction, so
-    # value_and_grad skips the [rays, spheres] matmul work entirely.
-    use_pallas_hits: bool = False
-    # Fully-fused differentiable path: BOTH the forward bounce and its
-    # adjoint run as Pallas kernels (ops/pallas_grad.py), with table
-    # cotangents bucket-accumulated on the MXU.  Fastest fwd+bwd path;
-    # gradient semantics identical to the jnp bounce.  Takes precedence
-    # over use_pallas_hits (use_pallas still wins for forward-only runs).
-    use_pallas_grad: bool = False
-    # Regeneration-based fused gradient kernels (ops/pallas_grad_regen.py):
-    # the persistent-kernel utilization fix applied to the differentiable
-    # path — dead lanes immediately start their pixel's next sample, so
-    # fwd+bwd work tracks the ~2.7-bounce mean path instead of sweeping
-    # every block max_depth times.  Requires use_pallas_grad.  Since round
-    # 4 it serves every scene: plane scenes (virtual-unit-sphere winner)
-    # and soft silhouettes (in-bounce blend) included.
-    grad_regen: bool = False
-    # Pixel banks per lane for the regen gradient kernels (chains/lane =
-    # banks * spp_chunk; the block-straggler tail shrinks ~1/sqrt(chains)
-    # while the bank-select cost grows O(banks)).  0 = module default.
-    grad_regen_banks: int = 0
-    # Streamed-idx gradients: when spp chunking is active on the regen
-    # path, record only the winner-index plane during the forward and
-    # replace each remat re-forward with a scan-free replay (recorded idx
-    # + one-hot MXU attribute gather) — the sphere scan is ~85% of the
-    # re-forward it eliminates.  The planes pack 3 winner indices per i32
-    # word (round 4, ~500 spp at bench shape); past the budget it falls
-    # back to chunked remat (the measured-faster beyond-capacity schedule).
-    grad_regen_stream: bool = True
-    pallas_interpret: bool = False  # run the kernels interpreted (CPU tests)
-    # Differentiate camera parameters (round 5): route gradient renders
-    # through XLA-side ray generation (camera.generate_rays, fully
-    # differentiable) into the fused trace — whose custom VJP already
-    # returns per-ray (origin, direction) cotangents — instead of the
-    # in-kernel raygen / regen kernels (which consume pixel ids directly
-    # and detach the camera).  Slower per step (the in-kernel raygen saved
-    # ~35 ms/dispatch) but the only path with camera gradients; used by
-    # inverse.fit_camera.
-    camera_grad: bool = False
+    # Forward renders through the GPU kernel (ops/pallas_forward.py);
+    # gradient entry points always take the jnp bounce.
+    use_pallas: bool = False
+    pallas_interpret: bool = False  # run the kernel interpreted (CPU tests)
     # Soft-silhouette blend width for the first bounce (0 = hard edges).
     # Used by inverse rendering to recover geometry gradients at visibility
     # boundaries, which the detached hit selection otherwise drops.
@@ -203,14 +165,6 @@ class RenderConfig:
     # probability max(throughput) (clamped to [0.05, 1]) and are reweighted
     # by 1/p — unbiased early termination the reference lacks.  0 disables.
     rr_start_depth: int = 0
-    # Adaptive lane balancing (persistent kernel only): render this many
-    # probe spp first, measure per-pixel kernel iterations, then assign
-    # pixels to lanes cost-sorted (snake order) for the remaining spp.  A
-    # lane block runs as long as its most loaded lane; balancing lane sums
-    # shrinks that straggler tail.  Pixel values are bit-identical (all RNG
-    # is keyed by global pixel id) — only the lane schedule changes.
-    # 0 disables.
-    balance_probe_spp: int = 0
     rng_impl: str = "threefry2x32"  # jax PRNG implementation
 
     def __post_init__(self):

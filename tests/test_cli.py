@@ -69,3 +69,15 @@ def test_invert_preset_smoke(tmp_path):
     import os
 
     assert os.path.exists(out)
+
+
+def test_render_kernel_preset_refuses_cpu(tmp_path):
+    """A preset asks for the forward kernel; on the CPU the CLI says so
+    instead of falling back silently."""
+    import pytest
+
+    with pytest.raises(RuntimeError, match="needs a GPU.*--no-pallas"):
+        main([
+            "render", "--preset", "simple", "-o", str(tmp_path / "x.png"),
+            "--width", "8", "--height", "4", "--spp", "1", "-q",
+        ])

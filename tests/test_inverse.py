@@ -69,22 +69,6 @@ def test_finite_difference_albedo_gradient():
         np.testing.assert_allclose(float(g[i, ch]), float(fd), rtol=5e-2, atol=1e-6)
 
 
-def test_pallas_hits_gradients_match_jnp():
-    """use_pallas_hits (detached Pallas argmin + differentiable [N]-sized
-    reconstruction) must reproduce the full-jnp gradients to fp precision."""
-    truth, target, cam, cfg, key = _setup()
-    cfg_h = cfg.replace(use_pallas_hits=True, pallas_interpret=True)
-    pert = truth.replace(albedo=jnp.clip(truth.albedo + 0.2, 0, 1))
-    params, ss = inverse.split_params(pert)
-    l1, g1 = jax.value_and_grad(inverse.pixel_loss)(params, ss, target, cam, cfg, key)
-    l2, g2 = jax.value_and_grad(inverse.pixel_loss)(params, ss, target, cam, cfg_h, key)
-    np.testing.assert_allclose(float(l1), float(l2), rtol=1e-6)
-    for k in g1:
-        np.testing.assert_allclose(
-            np.asarray(g1[k]), np.asarray(g2[k]), rtol=1e-4, atol=1e-6, err_msg=k
-        )
-
-
 def test_soft_silhouette_center_gradient_descends():
     """With the first-bounce soft-silhouette blend, center gradients carry
     visibility terms and following them reduces the loss (pure interior

@@ -101,7 +101,7 @@ def test_plane_renders_and_differs_from_no_plane():
 
 
 def test_plane_bounce_kernel_matches_jnp():
-    """Bounce megakernel with the plane == jnp bounce with the plane."""
+    """Forward kernel through render() with the plane == jnp bounce."""
     scene = _floating_scene()
     cfg_kw = dict(width=32, height=24, spp=4, max_depth=4)
     key = jax.random.PRNGKey(11)
@@ -116,7 +116,7 @@ def test_plane_bounce_kernel_matches_jnp():
 
 
 def test_plane_persistent_kernel_matches_jnp():
-    """Persistent whole-render kernel with the plane == jnp bounce."""
+    """Forward kernel's per-block entry with the plane == jnp bounce."""
     from simplepathtracer_tpu.render import _render_block_pallas
     import jax.numpy as jnp
 
@@ -126,7 +126,7 @@ def test_plane_persistent_kernel_matches_jnp():
     key = jax.random.PRNGKey(3)
     pixel_ids = jnp.arange(cfg.num_pixels, dtype=jnp.int32)
     acc_k = np.asarray(
-        _render_block_pallas(scene, _cam(), cfg, key, pixel_ids, 0, cfg.spp)
+        _render_block_pallas(scene, _cam(), cfg, key, pixel_ids, 0, cfg.spp)[0]
     )
     from simplepathtracer_tpu.render import render_sample_batch
 
@@ -138,13 +138,13 @@ def test_plane_persistent_kernel_matches_jnp():
 
 
 def test_plane_gradients_flow():
-    """Gradient entry points fall back to the jnp bounce for plane scenes
-    (the fused kernels are sphere-only) and sphere gradients stay correct."""
+    """Gradient entry points accept a forward-kernel plane config (the jnp
+    bounce runs) and every leaf's gradient is finite, the plane's included."""
     import jax.numpy as jnp
 
     scene = _floating_scene()
     cfg = spt.RenderConfig(width=24, height=16, spp=4, max_depth=3,
-                           use_pallas_grad=True, pallas_interpret=True)
+                           use_pallas=True)
     key = jax.random.PRNGKey(5)
     target = jnp.zeros((16, 24, 3), jnp.float32)
     params, static_scene = inverse.split_params(scene)
@@ -155,10 +155,11 @@ def test_plane_gradients_flow():
     for k, g in grads.items():
         assert np.isfinite(np.asarray(g)).all(), k
     assert np.abs(np.asarray(grads["albedo"])).max() > 0
-    # And the values equal the explicit jnp-path gradients (same fallback).
+    assert np.abs(np.asarray(grads["plane"])[3:]).max() > 0
+    # The values equal the explicit jnp-path gradients.
     loss2, grads2 = jax.value_and_grad(inverse.pixel_loss)(
         params, static_scene, target, _cam(),
-        cfg.replace(use_pallas_grad=False), key,
+        cfg.replace(use_pallas=False), key,
     )
     np.testing.assert_allclose(float(loss), float(loss2), rtol=1e-6)
     for k in grads:

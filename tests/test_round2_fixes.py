@@ -1,8 +1,7 @@
-"""Regression tests for the round-2 correctness fixes (VERDICT.md items
-3-4, ADVICE.md items): gradient entry points must accept forward-only
-Pallas presets, checkpoints must round-trip the full config, the bounce
-megakernel must honor Russian roulette, and the RNG slot-map depth limit
-must be enforced.
+"""Regression tests for the round-2 correctness fixes: gradient entry
+points must accept forward-kernel presets, checkpoints must round-trip the
+full config, the RNG slot-map depth limit must be enforced, and the jnp
+path's spp chunks must bound memory.
 """
 
 import jax
@@ -25,7 +24,6 @@ def test_grad_safe_config_downgrades_pallas():
     cfg = _pallas_preset_cfg(width=16, height=8, spp=2, max_depth=3)
     safe = grad_safe_config(cfg)
     assert not safe.use_pallas
-    assert safe.use_pallas_hits  # interpret mode => hits kernel usable
     # No-op for already-differentiable configs.
     cfg2 = spt.RenderConfig(width=16, height=8)
     assert grad_safe_config(cfg2) is cfg2
@@ -60,11 +58,11 @@ def test_inverse_fit_accepts_pallas_preset():
 
 
 def test_checkpoint_roundtrips_full_config(tmp_path):
-    """ADVICE low: rr_start_depth / use_pallas_hits / silhouette_softness
-    were silently dropped by snapshots."""
+    """ADVICE low: rr_start_depth / silhouette_softness were silently
+    dropped by snapshots."""
     cfg = spt.RenderConfig(
         width=16, height=8, spp=4, max_depth=4, rr_start_depth=2,
-        use_pallas_hits=True, pallas_interpret=True, silhouette_softness=0.02,
+        pallas_interpret=True, silhouette_softness=0.02, spp_chunk=2,
     )
     scene = spt.simple_scene()
     cam = spt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1))
@@ -100,60 +98,36 @@ def test_max_depth_slot_map_limit():
     spt.RenderConfig(max_depth=30)  # boundary ok
 
 
-def test_bounce_megakernel_russian_roulette_matches_jnp():
-    """ADVICE low: trace_rays_pallas silently ignored rr_start_depth."""
-    from simplepathtracer_tpu.ops.sampling import ray_keys
-    from simplepathtracer_tpu.render import trace_rays, trace_rays_pallas
+@pytest.mark.parametrize("bytes_limit", [None, 8 << 30, 64 << 30, 80 << 30])
+def test_grad_safe_config_bounds_residual_memory(bytes_limit):
+    """Preset-scale spp must be chunked on the jnp path: the backward keeps
+    per-(ray, bounce) residuals and [rays, spheres] intermediates alive,
+    so an unchunked inverse.fit(PRESETS['cover'].config) (spp=100) would
+    run out of memory.  The chunk follows the device's memory limit (None:
+    no stats, the host budget)."""
+    import sys
 
-    scene = spt.three_sphere_scene()
-    cfg = spt.RenderConfig(
-        width=8, height=8, spp=1, max_depth=8, rr_start_depth=2,
-        pallas_interpret=True,
-    )
-    key = jax.random.PRNGKey(13)
-    n = 512
-    o = jnp.tile(jnp.asarray([[0.0, 0.0, -1.0]]), (n, 1))
-    d = jax.random.normal(jax.random.PRNGKey(4), (n, 3))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    ctx = ray_keys(key, jnp.arange(n), jnp.zeros(n, jnp.int32))
-    a = np.asarray(trace_rays(o, d, ctx, scene, cfg))
-    b = np.asarray(trace_rays_pallas(o, d, ctx, scene, cfg))
-    diff = np.abs(a - b)
-    assert diff.mean() < 1e-4, diff.mean()
-    assert (diff > 1e-3).mean() < 5e-3
-
-
-def test_grad_safe_config_bounds_residual_memory():
-    """Preset-scale spp must be auto-chunked under autodiff: the gradient
-    backward keeps per-(ray, bounce) residuals alive, so an unchunked
-    inverse.fit(PRESETS['cover'].config) (spp=100) would OOM.  The budget
-    is path-dependent: regen residuals are per lane-iteration (136 B), the
-    per-bounce fused path's per ray (~840 B at depth 10)."""
-    from simplepathtracer_tpu.render import (
-        _GRAD_ITER_BUDGET_REGEN, _GRAD_RAY_BUDGET, grad_safe_config,
-    )
-
-    cfg = spt.RenderConfig(
-        width=1200, height=800, spp=100, max_depth=10, spp_chunk=0,
-        use_pallas=True,
-    )
-    safe = grad_safe_config(cfg)
-    assert safe.spp_chunk > 0
-    if safe.grad_regen:
-        assert (safe.spp_chunk * cfg.num_pixels * cfg.max_depth
-                <= _GRAD_ITER_BUDGET_REGEN)
+    R = sys.modules["simplepathtracer_tpu.render"]
+    cfg = grad_safe_config(spt.RenderConfig(
+        width=1200, height=800, spp=100, max_depth=10, use_pallas=True,
+    ))
+    assert not cfg.use_pallas
+    budget = R.ray_budget(bytes_limit)
+    if bytes_limit is None:
+        assert budget == R._HOST_RAY_BUDGET
     else:
-        assert safe.spp_chunk * cfg.num_pixels <= _GRAD_RAY_BUDGET
-    # An explicitly non-regen config keeps the tighter per-ray budget.
-    safe_pb = grad_safe_config(cfg.replace(use_pallas=False,
-                                           use_pallas_grad=True))
-    assert safe_pb.spp_chunk * cfg.num_pixels <= _GRAD_RAY_BUDGET
+        assert budget == int(bytes_limit * R._MEMORY_SHARE) // R._BYTES_PER_RAY
+    chunk = R.spp_chunk(cfg, cfg.num_pixels, cfg.spp, bytes_limit)
+    assert 1 <= chunk < cfg.spp and cfg.spp % chunk == 0
+    assert chunk * cfg.num_pixels <= max(budget, cfg.num_pixels)
     # Small configs stay unchunked (no needless scan in the trace).
     small = spt.RenderConfig(width=48, height=24, spp=2)
-    assert grad_safe_config(small).spp_chunk == 0
-    # An explicit user chunk is respected.
-    explicit = grad_safe_config(cfg.replace(spp_chunk=5))
-    assert explicit.spp_chunk == 5
+    assert R.spp_chunk(small, small.num_pixels, 2, bytes_limit) == 2
+    # An explicit user chunk is an upper bound, rounded to a divisor.
+    assert R.spp_chunk(cfg.replace(spp_chunk=5), cfg.num_pixels, 100,
+                       bytes_limit) == 5
+    assert R.spp_chunk(cfg.replace(spp_chunk=7), cfg.num_pixels, 100,
+                       bytes_limit) == 5
 
 
 def test_chunked_gradients_match_unchunked():
@@ -181,3 +155,22 @@ def test_chunked_gradients_match_unchunked():
         np.testing.assert_allclose(
             np.asarray(g1[k]), np.asarray(g0[k]), rtol=1e-5, atol=1e-7
         )
+
+
+def test_auto_chunked_render_matches_unchunked(monkeypatch):
+    """With a ray budget of one spp of pixels the jnp path renders in
+    one-sample chunks; the sums equal the one-batch render's."""
+    import sys
+
+    from simplepathtracer_tpu.render import render_sample_batch
+
+    R = sys.modules["simplepathtracer_tpu.render"]
+    scene = spt.three_sphere_scene()
+    cam = spt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=60)
+    cfg = spt.RenderConfig(width=16, height=8, spp=4, max_depth=4)
+    key = jax.random.PRNGKey(3)
+    whole = np.asarray(render_sample_batch(scene, cam, cfg, key, 0, 4))
+    monkeypatch.setattr(R, "_HOST_RAY_BUDGET", cfg.num_pixels)
+    assert R.spp_chunk(cfg, cfg.num_pixels, 4) == 1
+    chunked = np.asarray(render_sample_batch(scene, cam, cfg, key, 0, 4))
+    np.testing.assert_allclose(chunked, whole, rtol=1e-5, atol=1e-6)

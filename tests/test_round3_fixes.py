@@ -1,77 +1,17 @@
-"""Regression tests for the round-3 ADVICE.md fixes: the -1-masked winner
-index reaching the bucket kernel (late-bounce dead-chunk skip), accumulate's
+"""Regression tests for the round-3 ADVICE.md fixes: accumulate's
 largest-divisor spp-chunk fallback (live-preview auto chunks), fit-snapshot
-version validation, bucket padding rows taking the dead skip, and graceful
-re-init of an already-initialized jax.distributed client.
+version validation, and graceful re-init of an already-initialized
+jax.distributed client.
 """
 
 import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu import inverse
-from simplepathtracer_tpu.ops.pallas_bucket import bucket_rows_pallas
-from simplepathtracer_tpu.ops.table_gather import bucket_rows
-from simplepathtracer_tpu.render import accumulate, grad_safe_config, init_state
-
-
-def test_masked_idx_reaches_bucket_accumulation():
-    """ADVICE r2 #1: render.py passed clamp(idx, 0) into attach_attr_columns,
-    so miss/dead rays bucketed exact-zero cotangents into sphere 0 every
-    chunk and the dead-chunk skip never fired.  The -1-masked idx must
-    produce the same d_table as the clamped one (zero rows land nowhere
-    either way) while keeping -1 visible to the kernel's skip gate."""
-    key = jax.random.PRNGKey(0)
-    n, k, s = 2048, 9, 24
-    idx = jax.random.randint(key, (n,), -1, s)  # -1 = dead/miss
-    ct = jax.random.normal(jax.random.fold_in(key, 1), (n, k), jnp.float32)
-    ct = ct * (idx >= 0)[:, None]  # dead rows carry exactly-zero cotangent
-    masked = bucket_rows_pallas(ct, idx, s, interpret=True)
-    clamped = bucket_rows_pallas(ct, jnp.maximum(idx, 0), s, interpret=True)
-    ref = bucket_rows(ct, idx, s)
-    np.testing.assert_allclose(np.asarray(masked), np.asarray(clamped), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(masked), np.asarray(ref), rtol=1e-5, atol=1e-6)
-
-
-def test_hits_path_gradients_with_masked_idx():
-    """End-to-end: the use_pallas_hits gradient path (which now feeds the
-    -1-masked idx to attach_attr_columns) matches the pure-jnp bounce."""
-    scene = spt.three_sphere_scene()
-    cam = spt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=60.0)
-    key = jax.random.PRNGKey(2)
-    cfg_jnp = spt.RenderConfig(width=16, height=8, spp=2, max_depth=4)
-    cfg_hits = cfg_jnp.replace(use_pallas_hits=True, pallas_interpret=True)
-    params, static_scene = inverse.split_params(scene)
-    target = jnp.full((8, 16, 3), 0.25, jnp.float32)
-
-    def loss(cfg):
-        return jax.value_and_grad(inverse.pixel_loss)(
-            params, static_scene, target, cam, cfg, key
-        )
-
-    l_ref, g_ref = loss(cfg_jnp)
-    l_hit, g_hit = loss(cfg_hits)
-    np.testing.assert_allclose(float(l_ref), float(l_hit), rtol=1e-5)
-    for k2 in g_ref:
-        np.testing.assert_allclose(
-            np.asarray(g_ref[k2]), np.asarray(g_hit[k2]), rtol=1e-3, atol=1e-5,
-            err_msg=k2,
-        )
-
-
-def test_bucket_padding_rows_take_dead_skip():
-    """Padding rows (n not a multiple of the kernel's ray step) now carry
-    idx = -1; an all-padding chunk must not perturb bucket 0."""
-    n, k, s = 700, 3, 8  # pads to 1024: the tail chunk is mostly padding
-    ct = jnp.ones((n, k), jnp.float32)
-    idx = jnp.full((n,), 3, jnp.int32)
-    out = bucket_rows_pallas(ct, idx, s, interpret=True)
-    expected = np.zeros((s, k), np.float32)
-    expected[3] = n
-    np.testing.assert_allclose(np.asarray(out), expected, rtol=1e-6)
+from simplepathtracer_tpu.render import accumulate, init_state
 
 
 def test_accumulate_nondivisible_spp_chunk():

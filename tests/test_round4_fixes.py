@@ -1,65 +1,18 @@
-"""Round-4 regression guards: streamed-idx capacity math, the CLI's
-gradient-accumulation auto-pick, and RR/balance defaults."""
-
-import jax
-import jax.numpy as jnp
-import numpy as np
+"""Round-4 regression guards: the CLI's gradient-accumulation schedule and
+the RR default for fits."""
 
 import simplepathtracer_tpu as spt
-from simplepathtracer_tpu import inverse
 from simplepathtracer_tpu.cli import main
-from simplepathtracer_tpu.render import stream_capacity_spp
 
 
-def test_stream_capacity_math():
-    """Capacity mirrors render_pixel_block's packed gate: 4 bytes per
-    _IDX_PACK lane-iterations over all samples within _IDX_PLANE_BUDGET."""
-    import sys
-
-    render_mod = sys.modules["simplepathtracer_tpu.render"]
-    from simplepathtracer_tpu.ops.pallas_grad_regen import (
-        IDX_PACK_MAX_SPHERES,
-        _IDX_PACK,
-    )
-
-    scene = spt.three_sphere_scene()
-    cfg = spt.RenderConfig(width=1200, height=800, spp=500, max_depth=10)
-    cap = stream_capacity_spp(cfg, scene)
-    expect = (
-        _IDX_PACK * render_mod._IDX_PLANE_BUDGET
-        // (4 * cfg.num_pixels * cfg.max_depth)
-    )
-    assert cap == expect
-    # The 500-spp north star fits at bench shape (the round-4 headline).
-    assert cap >= 500, cap
-    # Sphere tables beyond the 10-bit pack can't stream at all.
-    big = scene.replace(
-        centers=jnp.zeros((IDX_PACK_MAX_SPHERES + 1, 3), jnp.float32),
-        radii=jnp.ones((IDX_PACK_MAX_SPHERES + 1,), jnp.float32),
-        albedo=jnp.full((IDX_PACK_MAX_SPHERES + 1, 3), 0.5, jnp.float32),
-        material=jnp.zeros((IDX_PACK_MAX_SPHERES + 1,), jnp.int32),
-        fuzz=jnp.zeros((IDX_PACK_MAX_SPHERES + 1,), jnp.float32),
-        ior=jnp.ones((IDX_PACK_MAX_SPHERES + 1,), jnp.float32),
-    )
-    assert stream_capacity_spp(cfg, big) == 0
-
-
-def test_cli_invert_auto_grad_accum(monkeypatch, tmp_path, capsys):
-    """With the idx budget shrunk below the preset spp, the invert CLI
-    must switch to gradient accumulation (the BASELINE config-5
-    single-chip schedule) and still complete."""
-    import sys
-
-    render_mod = sys.modules["simplepathtracer_tpu.render"]
-    # Budget for exactly 2 spp at the tiny test shape -> spp 4 needs K=2.
-    cfg_pixels = 32 * 16
-    monkeypatch.setattr(
-        render_mod, "_IDX_PLANE_BUDGET", 4 * cfg_pixels * 3 * 2 // 3
-    )
+def test_cli_invert_auto_grad_accum(tmp_path, capsys):
+    """``--grad-accum 2`` switches the invert CLI to optimizer-level
+    gradient accumulation (the BASELINE config-5 single-card schedule)
+    and the fit still completes."""
     rc = main([
         "invert", "--preset", "three_sphere", "--steps", "2",
         "--width", "32", "--height", "16", "--spp", "4", "--max-depth", "3",
-        "-o", str(tmp_path / "t.png"),
+        "--grad-accum", "2", "-o", str(tmp_path / "t.png"),
     ])
     assert rc == 0
     err = capsys.readouterr().err  # Meter emits to stderr
